@@ -1,18 +1,18 @@
-"""audio_sheet_retrieval_tpu — TPU-native audio–sheet-music retrieval framework.
+"""audio_sheet_retrieval_tpu — audio–sheet-music retrieval framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 CPJKU/audio_sheet_retrieval (TISMIR 2018): twin convolutional encoders for
 sheet-music snippets and log-filterbank spectrogram excerpts, trained with a
 pairwise ranking loss on top of a CCA projection into a shared 32-D embedding
 space, plus retrieval/piece-identification services, CCA refinement, OMR, and
 audio-to-sheet alignment.
 
-Design is TPU-first:
+Design:
   * all compute paths are jit-compiled XLA (encoders, CCA whitening/eigh,
     gallery matmul+top-k, spectrogram front-end),
-  * multi-chip scaling via ``jax.sharding.Mesh`` + NamedSharding (data-parallel
-    training, gallery-sharded retrieval, psum'd covariance statistics),
-  * Pallas kernels for the fused gallery search hot path.
+  * multi-device scaling via ``jax.sharding.Mesh`` + NamedSharding
+    (data-parallel training, gallery-sharded retrieval, psum'd covariance
+    statistics).
 
 Reference parity notes cite files in the upstream repo as
 ``reference:<path>:<line>`` (mounted read-only during development).

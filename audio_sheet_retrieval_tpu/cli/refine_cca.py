@@ -5,7 +5,7 @@ samples with the PRE-CCA encoder outputs, fit offline CCA (method 'svd'),
 write U/V/mean1/mean2 back into the projection head, dump to a parallel
 ``<model>_est_UV`` experiment directory.
 
-TPU-first: the embed runs as jitted fixed-size batches and the CCA fit is a
+Device-side: the embed runs as jitted fixed-size batches and the CCA fit is a
 single on-device computation over psum-ready sufficient statistics (the
 covariances are 32x32, so sharded galleries combine exactly — see
 parallel/gallery.py for the multi-chip path).

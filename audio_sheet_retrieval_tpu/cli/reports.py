@@ -23,7 +23,8 @@ import pickle
 import time
 
 import numpy as np
-import yaml
+
+from audio_sheet_retrieval_tpu import config as cfg_mod
 
 AUG_MAPPING = {
     "mutopia_no_aug": "none",
@@ -48,8 +49,7 @@ def report_retrieval(out_path: str, splits=None, augs=None):
                 eval_file = os.path.join(
                     out_path, f"eval_{split}_{aug}_{ret_dir}.yaml")
                 if os.path.isfile(eval_file):
-                    with open(eval_file, "rb") as fp:
-                        res = yaml.safe_load(fp)
+                    res = cfg_mod.read_yaml(eval_file)
                     table_row += " & %.2f & %.2f & %.2f & %d" % (
                         res["recall_at_k"]["1"] / 100,
                         res["recall_at_k"]["25"] / 100,
@@ -79,8 +79,7 @@ def report_piece_retrieval(out_path: str, splits=None, augs=None):
                 eval_file = os.path.join(
                     out_path, f"retrieval_{split}_{aug}_{ret_dir}.yaml")
                 if os.path.isfile(eval_file):
-                    with open(eval_file, "rb") as fp:
-                        ranks = np.sort(yaml.safe_load(fp))
+                    ranks = np.sort(cfg_mod.read_yaml(eval_file))
                     n_pieces = len(ranks)
                     for idx, thr in enumerate([1, 5, 10]):
                         cnt = float(np.sum(ranks <= thr))
@@ -128,8 +127,7 @@ def report_umc_piece_retrieval(out_path: str, dsets=("umc_mozart",)):
             hits = glob.glob(os.path.join(
                 out_path, f"umc_retrieval_*_{dset}_{ret_dir}.yaml"))
             for f in sorted(hits):
-                with open(f, "rb") as fp:
-                    ranks = np.sort(yaml.safe_load(fp))
+                ranks = np.sort(cfg_mod.read_yaml(f))
                 cells = []
                 for thr in (1, 5, 10):
                     cnt = int(np.sum(ranks <= thr))
@@ -155,8 +153,7 @@ def report_dset_size(out_path: str, splits: dict | None = None):
         eval_file = os.path.join(out_path,
                                  f"eval_{split}_mutopia_no_aug_A2S.yaml")
         if os.path.isfile(eval_file):
-            with open(eval_file, "rb") as fp:
-                res = yaml.safe_load(fp)
+            res = cfg_mod.read_yaml(eval_file)
             row = "%s%% train data: MRR %.3f med-rank %d" % (
                 label, res["map"], res["med_rank"])
             print(row)

@@ -12,7 +12,6 @@ import argparse
 import os
 
 import numpy as np
-import yaml
 
 from audio_sheet_retrieval_tpu import config as cfg_mod
 from audio_sheet_retrieval_tpu.data.msmd import select_data
@@ -120,8 +119,7 @@ def main(argv=None):
         res_file = cfg_mod.derive_result_path(
             dump_file, "eval_", "%s.yaml" % ret_dir)
         os.makedirs(os.path.dirname(os.path.abspath(res_file)), exist_ok=True)
-        with open(res_file, "w") as fp:
-            yaml.safe_dump(results, fp, default_flow_style=False)
+        cfg_mod.write_yaml(res_file, results)
         print("dumped results to", res_file)
 
     return results

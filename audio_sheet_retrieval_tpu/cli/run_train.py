@@ -50,11 +50,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--exp_root", type=str, default=None)
     parser.add_argument("--compute_dtype", default=None,
                         choices=["float32", "bfloat16"],
-                        help="encoder math dtype (bfloat16: ~3x faster "
-                             "training on TPU)")
+                        help="encoder math dtype")
     parser.add_argument("--whitening", default=None,
                         choices=["polar", "eigh"],
-                        help="CCA whitening (polar: TPU-fast, loss-"
+                        help="CCA whitening (polar: matmul-only, loss-"
                              "equivalent; eigh: reference formulation)")
     parser.add_argument("--host_data", action="store_true",
                         help="disable the device-resident data path (keep "
@@ -121,8 +120,8 @@ def main(argv=None):
         valid_batch_iter = MultiviewPoolIteratorUnsupervised(
             batch_size=model_cfg.batch_size, shuffle=False)
     else:
-        # device-resident data: pieces live in HBM, batches are jitted
-        # gathers with on-device augmentation (~40x faster train steps)
+        # device-resident data: pieces live on device, batches are jitted
+        # gathers with on-device augmentation
         from audio_sheet_retrieval_tpu.data import device_pool as dpool
 
         data = dict(

@@ -11,7 +11,6 @@ import argparse
 import os
 
 import numpy as np
-import yaml
 
 from audio_sheet_retrieval_tpu import config as cfg_mod
 from audio_sheet_retrieval_tpu.models import get_model_config
@@ -135,9 +134,7 @@ def main(argv=None):
         res_file = cfg_mod.derive_result_path(
             dump_file, "umc_retrieval_", "%s_%s.yaml" % (dset, ret_dir))
         os.makedirs(os.path.dirname(os.path.abspath(res_file)), exist_ok=True)
-        with open(res_file, "w") as fp:
-            yaml.safe_dump([int(r) for r in ranks], fp,
-                           default_flow_style=False)
+        cfg_mod.write_yaml(res_file, [int(r) for r in ranks])
         print("dumped results to", res_file)
     return list(ranks)
 

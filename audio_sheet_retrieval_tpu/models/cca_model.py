@@ -19,6 +19,8 @@ from audio_sheet_retrieval_tpu.models import encoder as enc
 from audio_sheet_retrieval_tpu.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu.ops import cca as cca_ops
 
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 class ModelParams(NamedTuple):
     view1: Dict[str, Any]          # sheet encoder
@@ -91,8 +93,8 @@ def forward_train(
         a = cfg.alpha
         mean1 = (1.0 - a) * params.cca.mean1 + a * jnp.mean(h1, axis=0)
         mean2 = (1.0 - a) * params.cca.mean2 + a * jnp.mean(h2, axis=0)
-        lv1 = (h1 - mean1).dot(params.cca.U)
-        lv2 = (h2 - mean2).dot(params.cca.V)
+        lv1 = (h1 - mean1).dot(params.cca.U, precision=HIGHEST)
+        lv2 = (h2 - mean2).dot(params.cca.V, precision=HIGHEST)
         corr = jnp.zeros((cfg.dim_latent,), jnp.float32)
         new_cca = params.cca._replace(
             mean1=jax.lax.stop_gradient(mean1),
@@ -110,7 +112,7 @@ def embed_view1(params: ModelParams, x1: jnp.ndarray,
     h1, _ = enc.encoder_apply(params.view1, x1, train=False,
                               compute_dtype=_dtype(cfg),
                               conv_precision=cfg.conv_precision)
-    lv1 = (h1 - params.cca.mean1).dot(params.cca.U)
+    lv1 = (h1 - params.cca.mean1).dot(params.cca.U, precision=HIGHEST)
     return length_norm(lv1)
 
 
@@ -120,7 +122,7 @@ def embed_view2(params: ModelParams, x2: jnp.ndarray,
     h2, _ = enc.encoder_apply(params.view2, x2, train=False,
                               compute_dtype=_dtype(cfg),
                               conv_precision=cfg.conv_precision)
-    lv2 = (h2 - params.cca.mean2).dot(params.cca.V)
+    lv2 = (h2 - params.cca.mean2).dot(params.cca.V, precision=HIGHEST)
     return length_norm(lv2)
 
 
@@ -170,16 +172,16 @@ def fold(params: ModelParams) -> FoldedModel:
         view2=enc.fold_batch_norm(params.view2),
         U=params.cca.U,
         V=params.cca.V,
-        b1=-params.cca.mean1.dot(params.cca.U),
-        b2=-params.cca.mean2.dot(params.cca.V),
+        b1=-params.cca.mean1.dot(params.cca.U, precision=HIGHEST),
+        b2=-params.cca.mean2.dot(params.cca.V, precision=HIGHEST),
     )
 
 
 def folded_embed_view1(fm: FoldedModel, x1, compute_dtype=jnp.float32):
     h = enc.encoder_apply_folded(fm.view1, x1, compute_dtype=compute_dtype)
-    return length_norm(h.dot(fm.U) + fm.b1)
+    return length_norm(h.dot(fm.U, precision=HIGHEST) + fm.b1)
 
 
 def folded_embed_view2(fm: FoldedModel, x2, compute_dtype=jnp.float32):
     h = enc.encoder_apply_folded(fm.view2, x2, compute_dtype=compute_dtype)
-    return length_norm(h.dot(fm.V) + fm.b2)
+    return length_norm(h.dot(fm.V, precision=HIGHEST) + fm.b2)

@@ -45,15 +45,14 @@ class ModelConfig:
     pretrain_epochs: int = 0
     k_samples: int = 10000        # samples per training sub-epoch (:203)
     # numerics
-    compute_dtype: str = "float32"   # encoder conv dtype ("bfloat16" on TPU)
-    whitening: str = "polar"      # CCA layer whitening: "polar" (TPU-fast
+    compute_dtype: str = "float32"   # encoder conv dtype (or "bfloat16")
+    whitening: str = "polar"      # CCA layer whitening: "polar" (matmul-only
     #                               Newton-Schulz; loss/metrics equivalent,
     #                               see PARITY.md) or "eigh" (reference form)
-    conv_precision: str = "highest"  # f32 conv passes: "highest" (bf16x6,
-    #                               strict checkpoint parity), "high"
-    #                               (bf16x3 — the middle serving recipe,
-    #                               ~1e-6 relative error, measured in
-    #                               scripts/precision_probe.py), "default"
+    conv_precision: str = "highest"  # f32 conv precision: "highest" (full
+    #                               f32, strict checkpoint parity); "high"
+    #                               and "default" allow the backend's
+    #                               cheaper f32 algorithm (TF32 on the GPU)
     cca_grad: str = "full"        # "full": differentiate through the
     #                               whitening chain (reference parity);
     #                               "projection": stop-grad U/V/means —

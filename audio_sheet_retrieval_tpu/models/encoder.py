@@ -6,8 +6,8 @@ per view: 4x [conv3x3-BN-ELU x2 + maxpool2] then conv1x1(dim_latent)-BN
 the conv bias and moves the nonlinearity after BN; blocks here do exactly
 conv (no bias) -> BN -> activation.
 
-TPU-first choices:
-  * NHWC layout / HWIO kernels (MXU-native for lax.conv),
+Layout and numerics:
+  * NHWC layout / HWIO kernels (XLA hands these convs to cuDNN on the GPU),
   * optional bfloat16 conv compute with float32 accumulation/statistics,
   * explicit parameter pytrees (trainable: w/beta/gamma; running state:
     mean/inv_std, stored exactly as lasagne — inv_std, not variance — so the
@@ -69,11 +69,11 @@ _PRECISIONS = {"highest": jax.lax.Precision.HIGHEST,
 
 
 def _conv(x, w, compute_dtype, conv_precision: str = "highest"):
-    # float32 path pins HIGHEST precision by default: TPU otherwise lowers
-    # f32 convs to bf16 multiplies, breaking checkpoint-parity tolerances.
-    # ``conv_precision="high"`` (bf16x3 passes) is the middle serving
-    # recipe: ~2x the HIGHEST throughput at ~1e-6 relative error — see
-    # scripts/precision_probe.py + PARITY.md. The bfloat16 fast path keeps
+    # float32 path pins HIGHEST precision by default: full f32 multiplies,
+    # the checkpoint-parity arm. "high" and "default" let the backend pick
+    # a cheaper algorithm (on the GPU: TF32 tensor cores, ~1e-3 relative
+    # error per product); chip_smoke.py prints what each arm lowers to and
+    # its deviation from the numpy oracle. The bfloat16 fast path keeps
     # conv output in bf16 (a float32 preferred_element_type breaks the
     # transpose/grad rule with mixed dtypes); callers cast the activations
     # back to float32 for the BN statistics.

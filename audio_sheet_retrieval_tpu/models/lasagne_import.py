@@ -101,8 +101,7 @@ def import_retrieval_params(arrays: Sequence[np.ndarray],
         S12=jnp.asarray(s12), S11=jnp.asarray(s11), S22=jnp.asarray(s22),
     )
     # sanity check the first conv against the model config (checked on the
-    # host-side source array: a device->host download here would degrade
-    # dispatch latency for the whole process on tunneled backends)
+    # host-side source array: no device->host download)
     n_filters = int(arrays[0].shape[0])  # OIHW
     if n_filters != cfg.num_filters:
         raise ValueError(

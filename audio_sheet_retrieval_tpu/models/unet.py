@@ -14,7 +14,7 @@ arrays):
   * TransposedConv2DLayer stores W as (C_in, C_out, Kh, Kw) with
     flip_filters=False; the 2x2 stride-2 upsampling is implemented exactly
     as the gradient-of-correlation: out[2i+k, 2j+l, o] = sum_c x[i,j,c] *
-    W[c,o,k,l] — one einsum (MXU) + reshape, no conv ambiguity;
+    W[c,o,k,l] — one einsum + reshape, no conv ambiguity;
   * the transposed conv's default nonlinearity (ReLU) is moved after its BN
     by the lasagne batch_norm helper.
 """
@@ -43,7 +43,7 @@ _PRECISIONS = {
 def _bn_eval(h, bn):
     # fold scale/shift at the activation dtype: on the bf16 path this
     # keeps the elementwise traffic half-width (the U-Net is channel-
-    # starved, 8-64ch, so it is HBM-bound, not MXU-bound — per-layer
+    # starved, 8-64ch, so it is memory-bound, not compute-bound — per-layer
     # f32<->bf16 converts COST more than bf16 multiplies save)
     dt = h.dtype
     return (h - bn["mean"].astype(dt)) \
@@ -94,11 +94,11 @@ def unet_apply(params: Dict[str, Any], x: jnp.ndarray,
     precision ladder (same methodology as the retrieval encoders,
     models/configs.py conv_precision). On the bfloat16 arm the WHOLE
     pipeline (activations, BN folds, ELU, pools) runs bf16 — this U-Net
-    is channel-starved (8-64 ch) and HBM-bound, so per-layer f32<->bf16
+    is channel-starved (8-64 ch) and memory-bound, so per-layer f32<->bf16
     converts around f32 elementwise ops cost more traffic than they save;
     convs/tconvs still ACCUMULATE f32 (preferred_element_type). The head
     bias-add and sigmoid stay f32. Gated on detection equality
-    (tests/test_omr.py, scripts/omr_probe.py)."""
+    (tests/test_omr.py)."""
     precision = _PRECISIONS[conv_precision]
     if compute_dtype not in ("bfloat16", "float32"):
         # fail fast like conv_precision's _PRECISIONS lookup — a silent

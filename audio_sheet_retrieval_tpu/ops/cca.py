@@ -16,7 +16,7 @@ Two reference components are unified here:
 
    Matrix inverse square roots use eigh (the reference's 'svd-2'/'eigen-2'
    path) rather than scipy ``sqrtm`` — identical for SPD matrices and runs on
-   the MXU. Transform semantics match cca.py:432-444.
+   the device. Transform semantics match cca.py:432-444.
 
 2. The **in-graph CCA layer** (reference:models/lasagne_extensions/layers/
    cca.py:43-209). Theano carried running statistics through
@@ -37,6 +37,14 @@ from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
+
+# Every product here runs at full float32 precision: on a GPU a default-
+# precision f32 dot may run in TF32 (~10 mantissa bits), which breaks the
+# statistics, whitening and projection parity with the float32 reference
+# (PARITY.md). The matrices are 32x32 or [B, 32], so the cost is nil.
+HIGHEST = jax.lax.Precision.HIGHEST
+_dot = functools.partial(jnp.dot, precision=HIGHEST,
+                         preferred_element_type=jnp.float32)
 
 DEFAULT_R1 = 1e-3
 DEFAULT_R2 = 1e-3
@@ -82,13 +90,13 @@ def inv_sqrt_spd(S: jnp.ndarray) -> jnp.ndarray:
     Matches the reference's diagonalization path (utils/cca.py:216-219).
     """
     d, A = jnp.linalg.eigh(S)
-    return (A * (1.0 / jnp.sqrt(d))).dot(A.T)
+    return _dot(A * (1.0 / jnp.sqrt(d)), A.T)
 
 
 def inv_sqrt_spd_ns(S: jnp.ndarray, iters: int = 30) -> jnp.ndarray:
     """S^{-1/2} via the coupled Newton-Schulz (Denman-Beavers) iteration.
 
-    Pure 32x32 matmuls — MXU-native and differentiable without the eigh
+    Pure 32x32 matmuls — accelerator-friendly and differentiable without the eigh
     JVP's 1/(lambda_i - lambda_j) blowups. Trace normalization puts the
     spectrum in (0, 1]; with the CCA ridge (1e-3) the condition number is
     bounded and ~30 iterations converge to fp32 accuracy.
@@ -101,8 +109,8 @@ def inv_sqrt_spd_ns(S: jnp.ndarray, iters: int = 30) -> jnp.ndarray:
 
     def body(_, yz):
         Y, Z = yz
-        Tm = 0.5 * (3.0 * eye - Z @ Y)
-        return Y @ Tm, Tm @ Z
+        Tm = 0.5 * (3.0 * eye - _dot(Z, Y))
+        return _dot(Y, Tm), _dot(Tm, Z)
 
     Y, Z = jax.lax.fori_loop(0, iters, body, (Y, Z))
     return Z / jnp.sqrt(norm)
@@ -121,7 +129,7 @@ def polar_ns(T: jnp.ndarray, iters: int = 40) -> jnp.ndarray:
     X = T / jnp.linalg.norm(T)
 
     def body(_, X):
-        return 0.5 * X @ (3.0 * eye - X.T @ X)
+        return 0.5 * _dot(X, 3.0 * eye - _dot(X.T, X))
 
     return jax.lax.fori_loop(0, iters, body, X)
 
@@ -133,9 +141,9 @@ def cca_moments(H1: jnp.ndarray, H2: jnp.ndarray) -> CCAMoments:
         n=n,
         s1=jnp.sum(H1, axis=0),
         s2=jnp.sum(H2, axis=0),
-        s11=jnp.dot(H1.T, H1, preferred_element_type=jnp.float32),
-        s22=jnp.dot(H2.T, H2, preferred_element_type=jnp.float32),
-        s12=jnp.dot(H1.T, H2, preferred_element_type=jnp.float32),
+        s11=_dot(H1.T, H1),
+        s22=_dot(H2.T, H2),
+        s12=_dot(H1.T, H2),
     )
 
 
@@ -155,34 +163,35 @@ def _covariances_from_moments(m: CCAMoments, r1, r2):
 def _fit_from_covariances(m1, m2, S12, S11, S22, method: str, rT) -> CCAResult:
     S11si = inv_sqrt_spd(S11)
     S22si = inv_sqrt_spd(S22)
-    T = S11si.dot(S12).dot(S22si)
+    T = _dot(_dot(S11si, S12), S22si)
 
     if method == "svd":
         U_, coeffs, Vt = jnp.linalg.svd(T)
-        U = S11si.dot(U_)
-        V = S22si.dot(Vt.T)
+        U = _dot(S11si, U_)
+        V = _dot(S22si, Vt.T)
     elif method == "eigen":
-        M1 = T.dot(T.T) + rT * jnp.eye(T.shape[0], dtype=T.dtype)
-        M2 = T.T.dot(T) + rT * jnp.eye(T.shape[1], dtype=T.dtype)
+        M1 = _dot(T, T.T) + rT * jnp.eye(T.shape[0], dtype=T.dtype)
+        M2 = _dot(T.T, T) + rT * jnp.eye(T.shape[1], dtype=T.dtype)
         vals, E = jnp.linalg.eigh(M1)
         _, F = jnp.linalg.eigh(M2)
         E = E[:, ::-1]
         F = F[:, ::-1]
         coeffs = jnp.sqrt(jnp.clip(vals[::-1], 0.0, None))
-        U = S11si.dot(E)
-        V = S22si.dot(F)
+        U = _dot(S11si, E)
+        V = _dot(S22si, F)
         # sign fix: two decompositions instead of one SVD (cca.py:196-197)
-        s = jnp.sign(jnp.diagonal(U.T.dot(S12).dot(V)))
+        s = jnp.sign(jnp.diagonal(_dot(_dot(U.T, S12), V)))
         U = U * s
     elif method == "eigen-4":
         S21 = S12.T
         S22i = jnp.linalg.inv(S22)
-        M1 = S11si.dot(S12).dot(S22i).dot(S21).dot(S11si.T)
+        M1 = jnp.linalg.multi_dot(
+            [S11si, S12, S22i, S21, S11si.T], precision=HIGHEST)
         vals, E = jnp.linalg.eigh(M1)
         E = E[:, ::-1]
         coeffs = jnp.sqrt(jnp.clip(vals[::-1], 0.0, None))
-        U = S11si.T.dot(E)
-        V = S22i.dot(S21).dot(U) / coeffs
+        U = _dot(S11si.T, E)
+        V = _dot(_dot(S22i, S21), U) / coeffs
     else:  # pragma: no cover
         raise NotImplementedError(f"unknown CCA method family: {method}")
 
@@ -227,12 +236,12 @@ def cca_fit_from_moments(m: CCAMoments, r1=DEFAULT_R1, r2=DEFAULT_R2,
 
 def cca_transform_v1(res: CCAResult, X):
     """Project view-1 data (reference utils/cca.py:432-439)."""
-    return jnp.dot(jnp.asarray(X) - res.m1, res.U)
+    return _dot(jnp.asarray(X) - res.m1, res.U)
 
 
 def cca_transform_v2(res: CCAResult, Y):
     """Project view-2 data (reference utils/cca.py:441-444)."""
-    return jnp.dot(jnp.asarray(Y) - res.m2, res.V)
+    return _dot(jnp.asarray(Y) - res.m2, res.V)
 
 
 # ---------------------------------------------------------------------------
@@ -283,12 +292,12 @@ def cca_layer_train(
     ``whitening``:
       * "eigh"  — the reference formulation: inverse sqrts + double eigh of
         TTᵀ/TᵀT with the sign-matching fix (lasagne cca.py:144-173).
-      * "polar" — TPU-native equivalent: Newton-Schulz inverse sqrts + the
+      * "polar" — matmul-only equivalent: Newton-Schulz inverse sqrts + the
         orthogonal polar factor W = polar(T). After the reference's sign
         fix, E Fᵀ == polar(T) exactly, and both the training loss and all
         eval retrieval metrics are invariant under the per-view rotations
         that distinguish (U, V) from (S11si·W, S22si) — see PARITY.md.
-        Pure matmuls: ~20x faster on TPU and with stable gradients (no
+        Pure matmuls, with stable gradients (no
         eigh-JVP 1/(lambda_i-lambda_j) terms). The monitored corr becomes
         diag(WᵀT) (same sum as the singular values). Requires wl == 0
         (true for all shipped models).
@@ -300,12 +309,9 @@ def cca_layer_train(
         symbolically inside the training graph).
       * "projection" — U/V/means are treated as constants of the step
         (stop_gradient); encoder gradients flow only through the
-        projection matmul. KEPT AS A RESEARCH ABLATION with two measured
-        negative results (scripts/train_probe.py C2, scripts/capstone.py
-        --cca_grad projection): (a) speed-neutral — the whitening VJP
-        chain costs ~0.2 ms of the 4.2 ms bf16 backward (XLA
-        differentiates the 32x32 Newton-Schulz chain essentially for
-        free); (b) from-scratch training COLLAPSES without the whitening
+        projection matmul. KEPT AS A RESEARCH ABLATION with a measured
+        negative result (scripts/capstone.py --cca_grad projection):
+        from-scratch training COLLAPSES without the whitening
         sensitivity (val MRR 0.0075 vs 0.518 at 120k entities) — the
         reference's differentiate-through-whitening dynamic is
         load-bearing, not incidental.
@@ -329,9 +335,9 @@ def cca_layer_train(
 
     denom = m - 1.0
     eye = jnp.eye(H1.shape[1], dtype=f32)
-    S12 = jnp.dot(H1bar.T, H2bar, preferred_element_type=f32) / denom
-    S11 = jnp.dot(H1bar.T, H1bar, preferred_element_type=f32) / denom + r1 * eye
-    S22 = jnp.dot(H2bar.T, H2bar, preferred_element_type=f32) / denom + r2 * eye
+    S12 = _dot(H1bar.T, H2bar) / denom
+    S11 = _dot(H1bar.T, H1bar) / denom + r1 * eye
+    S22 = _dot(H2bar.T, H2bar) / denom + r2 * eye
 
     S12 = (1.0 - a) * state.S12 + a * S12
     S11 = (1.0 - a) * state.S11 + a * S11
@@ -340,43 +346,43 @@ def cca_layer_train(
     if whitening == "polar":
         S11si = inv_sqrt_spd_ns(S11)
         S22si = inv_sqrt_spd_ns(S22)
-        T = S11si.dot(S12).dot(S22si)
+        T = _dot(_dot(S11si, S12), S22si)
         W = polar_ns(T)
-        U = S11si.dot(W)
+        U = _dot(S11si, W)
         V = S22si
         # WᵀT = (TᵀT)^1/2: same trace as the singular values (corr proxy)
-        corr = jnp.sqrt(jnp.clip(jnp.abs(jnp.diagonal(W.T.dot(T))) ** 2,
+        corr = jnp.sqrt(jnp.clip(jnp.abs(jnp.diagonal(_dot(W.T, T))) ** 2,
                                  1e-7, 1.0))
     elif whitening == "eigh":
         S11si = inv_sqrt_spd(S11)
         S22si = inv_sqrt_spd(S22)
 
-        T = S11si.dot(S12).dot(S22si)
-        M1 = T.dot(T.T) + rT * eye
-        M2 = T.T.dot(T) + rT * eye
+        T = _dot(_dot(S11si, S12), S22si)
+        M1 = _dot(T, T.T) + rT * eye
+        M2 = _dot(T.T, T) + rT * eye
 
         E1, E = jnp.linalg.eigh(M1)
         _, F = jnp.linalg.eigh(M2)
 
         corr = jnp.sqrt(jnp.clip(E1, 1e-7, 1.0))
 
-        U = S11si.dot(E)
-        V = S22si.dot(F)
+        U = _dot(S11si, E)
+        V = _dot(S22si, F)
 
         # flip signs of projections to match (cca.py:170-173)
-        s = jnp.sign(jnp.diagonal(U.T.dot(S12).dot(V)))
+        s = jnp.sign(jnp.diagonal(_dot(_dot(U.T, S12), V)))
         U = U * s
     else:  # pragma: no cover
         raise ValueError(f"unknown whitening: {whitening}")
 
     if grad_mode == "projection":
-        lv1 = (H1 - jax.lax.stop_gradient(mean1)).dot(
-            jax.lax.stop_gradient(U))
-        lv2 = (H2 - jax.lax.stop_gradient(mean2)).dot(
-            jax.lax.stop_gradient(V))
+        lv1 = _dot(H1 - jax.lax.stop_gradient(mean1),
+                   jax.lax.stop_gradient(U))
+        lv2 = _dot(H2 - jax.lax.stop_gradient(mean2),
+                   jax.lax.stop_gradient(V))
     else:
-        lv1 = H1bar.dot(U)
-        lv2 = H2bar.dot(V)
+        lv1 = _dot(H1bar, U)
+        lv2 = _dot(H2bar, V)
 
     new_state = CCAState(
         U=jax.lax.stop_gradient(U),
@@ -393,6 +399,6 @@ def cca_layer_train(
 def cca_layer_eval(H1, H2, state: CCAState):
     """Eval-mode CCA layer: per-view affine projections with stored U/V/means
     (reference lasagne cca.py:185-201)."""
-    lv1 = jnp.dot(H1 - state.mean1, state.U)
-    lv2 = jnp.dot(H2 - state.mean2, state.V)
+    lv1 = _dot(H1 - state.mean1, state.U)
+    lv2 = _dot(H2 - state.mean2, state.V)
     return lv1, lv2

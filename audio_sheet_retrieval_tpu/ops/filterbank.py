@@ -17,7 +17,7 @@ logic below replicates madmom's construction:
     (TriangularFilter), each filter area-normalized to 1 (norm_filters=True).
 
 The result is a dense [num_fft_bins, num_filters] matrix applied as a single
-matmul on device — the whole madmom CPU DSP chain becomes one MXU op.
+matmul on device — the whole madmom CPU DSP chain becomes one device matmul.
 """
 
 from __future__ import annotations

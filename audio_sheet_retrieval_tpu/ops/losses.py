@@ -5,7 +5,7 @@ all four variants (kiros sum-form, contrastive cosine hinge, arccos distance
 hinge, squared-cosine) with identical margin/clip semantics. The reference
 extracts off-diagonal entries with an identity-mask + reshape trick
 (objectives.py:42-48); here the same quantity is computed with a mask so the
-whole loss stays a fused elementwise epilogue on the score matmul (MXU).
+whole loss stays a fused elementwise epilogue on the score matmul.
 
 All functions take two [n, d] latent batches and return a scalar.
 """
@@ -14,11 +14,15 @@ from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _score_matrix(lv1: jnp.ndarray, lv2: jnp.ndarray) -> jnp.ndarray:
-    return jnp.dot(lv1, lv2.T, preferred_element_type=jnp.float32)
+    return jnp.dot(lv1, lv2.T, precision=HIGHEST,
+                   preferred_element_type=jnp.float32)
 
 
 def _offdiag_mask(n: int, dtype=jnp.float32) -> jnp.ndarray:

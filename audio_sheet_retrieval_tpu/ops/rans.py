@@ -1,11 +1,9 @@
 """Interleaved-stream rANS entropy coding with an XLA-parallel device decode.
 
-Round-4's wire-floor analysis (scripts/wire_floor.py) measured the shipped
-two-level bitmap-RLE sheet coding at 0.109 B/px against a 0.069 B/px
-byte-entropy bound of its own payload, and the round-2/3 analyses closed
-the gap as unreachable because "arithmetic/deflate-class decoders have no
-parallel XLA decode". That verdict was wrong for ONE member of the class:
-range ANS with S interleaved streams. Each stream is a self-contained rANS
+The two-level bitmap-RLE sheet coding measures 0.109 B/px against a
+0.069 B/px byte-entropy bound of its own payload. Arithmetic/deflate-class
+decoders have no parallel XLA decode, with ONE exception: range ANS with S
+interleaved streams. Each stream is a self-contained rANS
 decoder, but S of them decode in lockstep — one symbol per stream per
 step — so the decode is a `lax.scan` of ceil(n/S) steps over [S]-lane
 vectors. No sequential bottleneck crosses lanes; the per-lane serial chain
@@ -21,10 +19,9 @@ exactly that (step-ascending, lane-ascending) order by processing symbols
 in reverse. No per-stream buffers, offsets or padding; the only per-stream
 overhead is the S final states (4 B each) shipped as the stream header.
 
-TPU cost model (measured, RESULTS.md round 4): XLA gathers run at a flat
-~7 ns/element on v5e regardless of table size, and every op inside a scan
-body carries a fixed dispatch overhead — so the decoder is built to
-minimize BOTH gathered elements per symbol and scan steps:
+Cost model: every gathered element and every op inside a scan body costs
+time, so the decoder is built to minimize BOTH gathered elements per symbol
+and scan steps:
 
   * the three per-slot lookups (symbol, frequency, cumulative base) are
     packed into ONE uint32 table entry (sym<<24 | freq<<12 | cum, all
@@ -45,15 +42,15 @@ it a bandwidth-starved-link recipe: it wins when link MB/s is below the
 crossover the bench measures (see bench.py ASR_BENCH_SHEET=rans).
 
 No reference analog (CPJKU/audio_sheet_retrieval ships raw uint8 pixels);
-this is a TPU-native transport optimization.
+this is a transport optimization for links slower than the decode.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import importlib.util
 import os
+import subprocess
 from typing import Optional
 
 import jax
@@ -107,10 +104,9 @@ def auto_streams(n: int) -> int:
     coder's only fixed wire overhead, and the scan's per-step cost is
     mostly fixed (the [P, S] lane math is tiny at any S), so the rule
     targets ~800 payload bytes per lane — state header <= ~0.5% of the
-    payload — instead of minimizing steps. Measured on the bench content
-    (round 4): vs the earlier ~100-step rule this cuts the sheet wire
-    0.074 -> 0.070 B/px and the spec-u8 wire 0.92 -> 0.87 B/B for a
-    corpus-decode cost still ~1 ms/piece; power of two in [128, 2048]."""
+    payload — instead of minimizing steps. On the bench content, vs an
+    ~100-step rule, this cuts the sheet wire 0.074 -> 0.070 B/px and the
+    spec-u8 wire 0.92 -> 0.87 B/B; power of two in [128, 2048]."""
     s = 1 << int(np.ceil(np.log2(max(1, n / 800))))
     return int(max(128, min(s, N_STREAMS)))
 
@@ -195,80 +191,33 @@ def rans_encode_batch(arrays, n_streams: int | None = None):
     return _rans_encode_batch_numpy(arrays, freqs, S)
 
 
-_NATIVE_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "native", "rans", "libasrrans.so")
 _native: Optional[ctypes.CDLL] = None
 _native_failed = False
 
 
 def _native_lib() -> Optional[ctypes.CDLL]:
-    """Load (building on first use) the native batch encoder; None when
-    the toolchain is unavailable — callers fall back to numpy. Disable
-    explicitly with ASR_NO_NATIVE_RANS=1 (tests use it to pin the numpy
-    path)."""
+    """Load (building on first use, utils/native.py) the native batch
+    encoder; None when no C++ toolchain can build it — callers fall back
+    to numpy. Disable explicitly with ASR_NO_NATIVE_RANS=1 (tests use it
+    to pin the numpy path)."""
     global _native, _native_failed
     if os.environ.get("ASR_NO_NATIVE_RANS") == "1":
         return None
     if _native is not None or _native_failed:
         return _native
+    from audio_sheet_retrieval_tpu.utils import native
+
     try:
-        # staleness is tracked by a CONTENT digest of the source next to
-        # the vendored .so (mtimes are not preserved by git, so a
-        # fresh-clone mtime comparison is checkout-order noise). If the
-        # digest MISMATCHES (source changed) and the rebuild fails (no
-        # toolchain), the stale .so is NOT used: a wire-format drift
-        # between encoder versions would corrupt payloads silently on
-        # hosts that never run the test suite, so the always-current
-        # numpy encoder is preferred. The .so is only trusted without a
-        # digest check when the source itself is absent (binary-only
-        # deployment — nothing to drift from).
-        import hashlib
-
-        here = os.path.dirname(_NATIVE_LIB_PATH)
-        src = os.path.join(here, "rans_encode.cpp")
-        sha_path = _NATIVE_LIB_PATH + ".sha"
-        src_sha = hashlib.sha256(open(src, "rb").read()).hexdigest() \
-            if os.path.exists(src) else None
-        have = os.path.exists(_NATIVE_LIB_PATH)
-        fresh = (have and src_sha is not None and os.path.exists(sha_path)
-                 and open(sha_path).read().strip() == src_sha)
-        if not fresh:
-            try:
-                build_py = os.path.join(here, "build.py")
-                spec = importlib.util.spec_from_file_location(
-                    "asr_rans_build", build_py)
-                mod = importlib.util.module_from_spec(spec)
-                spec.loader.exec_module(mod)
-                mod.build(verbose=False)
-                if src_sha is not None:
-                    with open(sha_path, "w") as fh:
-                        fh.write(src_sha + "\n")
-            except Exception:
-                if not have:  # no toolchain AND no vendored binary
-                    raise
-                if src_sha is not None:
-                    # source present but changed vs the recorded digest,
-                    # and rebuild failed: treat the vendored binary as
-                    # stale and fall back to the numpy encoder.
-                    import warnings
-
-                    warnings.warn(
-                        "native rANS source changed but rebuild failed; "
-                        "ignoring stale libasrrans.so (numpy encoder "
-                        "fallback)", RuntimeWarning, stacklevel=2)
-                    _native_failed = True
-                    return None
-        lib = ctypes.CDLL(_NATIVE_LIB_PATH)
-        fn = lib.asr_rans_encode_batch
-        fn.restype = ctypes.c_int64
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-        _native = lib
-    except Exception:
+        lib = ctypes.CDLL(native.build("asrrans"))
+    except (OSError, subprocess.CalledProcessError):
         _native_failed = True
-        _native = None
+        return None
+    fn = lib.asr_rans_encode_batch
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    _native = lib
     return _native
 
 
@@ -469,28 +418,28 @@ def rans_decode_device(freqs: jnp.ndarray, states: jnp.ndarray,
 # ---------------------------------------------------------------------------
 # Device-side ENCODE (static frequency table).
 #
-# The wire above runs host->device: host encodes, TPU decodes in-graph. The
-# OMR probability-map DOWNLOAD needs the mirror: the map lives on device and
-# the HOST wants it — so the encoder must run in-graph and the (cheap,
-# sequential-friendly) decode runs on host. Round 4 analyzed this direction
-# as a wash because a device-built table costs two extra RPC round trips
-# (histogram download for table construction + word-count download before
-# the sized payload). Both disappear with a STATIC table trained offline on
-# map content (assets/omr_map_freqs.npy): the table is a compile-time
+# The wire above runs host->device: host encodes, the device decodes
+# in-graph. The OMR probability-map DOWNLOAD needs the mirror: the map lives
+# on device and the HOST wants it — so the encoder must run in-graph and the
+# (cheap, sequential-friendly) decode runs on host. A device-built table
+# would cost two extra host round trips (histogram download for table
+# construction + word-count download before the sized payload). Both
+# disappear with a STATIC table trained offline on map content
+# (assets/omr_map_freqs.npy): the table is a compile-time
 # constant on both ends, and the payload downloads as ONE fixed-capacity
 # buffer carrying its own word count (overflow -> the caller falls back to
 # the raw map, kept on device; see omr/inference.py).
 #
 # The encode scan mirrors the numpy encoder exactly (same layout, states,
-# and word order — tests assert bit-identity), with two TPU adaptations:
-#   * the u32 state division x // f has no fast TPU lowering, so each
+# and word order — tests assert bit-identity), with two device adaptations:
+#   * the u32 state division x // f has no fast vector lowering, so each
 #     symbol's reciprocal magic rides in the static table and the quotient
 #     is a mulhi + shift (Hacker's Delight round-up magic: for non-pow2 d
 #     with s = ceil(log2 d), m = ceil(2^(32+s)/d) is 33 bits; with
 #     m' = m - 2^32, q = (((x - mulhi(x, m')) >> 1) + mulhi(x, m'))
 #     >> (s-1), exact for ALL x < 2^32 since x*e < 2^(32+s));
 #   * words are emitted sparsely (one per lane-step where the state
-#     renormalizes), and TPU scatters/per-element gathers lower serially —
+#     renormalizes), and scatters/per-element gathers are slow to lower —
 #     so compaction is ONE lax.sort_key_val over the [K*S] candidates
 #     keyed by emission rank (non-emitting slots key to +inf), which keeps
 #     the (step-ascending, lane-ascending) stream order.
@@ -532,7 +481,7 @@ def encode_magic_tables(freqs: np.ndarray):
 
 def _mulhi32(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Exact high 32 bits of a 32x32 unsigned multiply via 16-bit limbs
-    (TPU has no 64-bit integer path)."""
+    (no 64-bit integers: JAX runs with x64 off)."""
     al = a & jnp.uint32(0xFFFF)
     ah = a >> 16
     bl = b & jnp.uint32(0xFFFF)

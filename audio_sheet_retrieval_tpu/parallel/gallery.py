@@ -24,6 +24,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from audio_sheet_retrieval_tpu.ops import cca as cca_ops
 from audio_sheet_retrieval_tpu.parallel.mesh import DB_AXIS
 
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def make_sharded_topk(mesh: Mesh, k: int, axis: str = DB_AXIS,
                       n_real: Optional[int] = None,
@@ -46,7 +48,8 @@ def make_sharded_topk(mesh: Mesh, k: int, axis: str = DB_AXIS,
         # gal: [N/m, d] local shard; q: [Q, d] replicated
         shard_size = gal.shape[0]
         base = jax.lax.axis_index(axis) * shard_size
-        scores = jnp.dot(q, gal.T, preferred_element_type=jnp.float32)
+        scores = jnp.dot(q, gal.T, precision=HIGHEST,
+                         preferred_element_type=jnp.float32)
         # NaN queries (e.g. an untrained zero projection) must not leak
         # padding indices — same defensive mask as the single-chip
         # retrieval.gallery._topk_query
@@ -169,8 +172,8 @@ def make_sharded_piece_query(mesh: Mesh, params, cfg, gallery,
     snippet gallery PARTITIONED row-wise across the mesh.
 
     The single-chip serving path (retrieval.gallery.make_fused_piece_query
-    _spec) holds the whole gallery in one HBM; beyond ~10M snippets the
-    rows must shard. Here the query spec payload is replicated, the
+    _spec) holds the whole gallery in one device's memory; beyond ~10M
+    snippets the rows must shard. Here the query spec payload is replicated, the
     excerpt embedding runs under GSPMD, and the gallery top-k runs as a
     shard_map: local [Q, N/m] matmul + local top-k, candidate exchange
     over ICI (all_gather of k*m rows/query instead of N), global re-rank,

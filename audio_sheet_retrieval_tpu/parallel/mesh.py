@@ -17,8 +17,8 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
               devices=None) -> Mesh:
     """Create a mesh over the available devices.
 
-    Defaults to a 1-D data-parallel mesh over all devices. On real hardware
-    the device order follows ICI topology via ``mesh_utils`` when available.
+    Defaults to a 1-D data-parallel mesh over all devices. The device
+    order comes from ``mesh_utils`` when it can derive one.
     """
     devices = list(devices if devices is not None else jax.devices())
     if shape is None:
@@ -29,43 +29,6 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
 
         dev_array = mesh_utils.create_device_mesh(shape, devices=devices)
     except Exception:
-        dev_array = np.asarray(devices).reshape(shape)
-    return Mesh(dev_array, axis_names=tuple(axis_names))
-
-
-def make_hybrid_mesh(ici_shape: Tuple[int, ...],
-                     dcn_shape: Tuple[int, ...],
-                     axis_names: Sequence[str],
-                     devices=None) -> Mesh:
-    """DCN-aware mesh for multi-slice / multi-pod deployments.
-
-    Axis i spans ``dcn_shape[i]`` slices over the data-center network and
-    ``ici_shape[i]`` chips within a slice over ICI; collectives on an axis
-    with ``dcn_shape[i] == 1`` ride ICI only. The standard production
-    layout puts data-parallel (gradient/CCA-stat psums, 32x32-scale
-    payloads — DCN-tolerant) across slices and everything bandwidth-hungry
-    (gallery shards, batch all-gathers) inside a slice:
-
-        mesh = make_hybrid_mesh((1, 8), (n_slices, 1), ("data", "db"))
-
-    Falls back to a plain reshape when ``mesh_utils`` cannot derive the
-    hybrid topology (CPU/virtual devices), keeping the same axis semantics
-    so code is testable on the virtual mesh.
-    """
-    devices = list(devices if devices is not None else jax.devices())
-    total = int(np.prod(ici_shape) * np.prod(dcn_shape))
-    assert total == len(devices), (ici_shape, dcn_shape, len(devices))
-    try:
-        from jax.experimental import mesh_utils
-
-        dev_array = mesh_utils.create_hybrid_device_mesh(
-            ici_shape, dcn_shape, devices=devices)
-    except Exception:
-        if devices[0].platform != "cpu":
-            # on real hardware a silent reshape would put bandwidth-hungry
-            # axes across DCN — exactly what this function exists to avoid
-            raise
-        shape = tuple(i * d for i, d in zip(ici_shape, dcn_shape))
         dev_array = np.asarray(devices).reshape(shape)
     return Mesh(dev_array, axis_names=tuple(axis_names))
 

@@ -31,9 +31,8 @@ def build_piece_gallery(params, cfg, images: Sequence[np.ndarray], *,
     galleries).
 
     ``fullconv``: route the strip embeds through the strip-level block-1
-    fast path (True = XLA feature gather, "pallas" = DMA gather — the
-    round-5 serving ceiling, ops/windows.py); lets sweeps gate that
-    arm's accuracy against the exact per-window build."""
+    fast path (ops/windows.py); lets sweeps gate that arm's accuracy
+    against the exact per-window build."""
     import jax.numpy as jnp
 
     from audio_sheet_retrieval_tpu.ops import windows as win

@@ -4,7 +4,7 @@ The reference's retrieval hot path is a per-query scipy ``cdist`` against the
 whole snippet-code database on the host (reference:audio_sheet_server.py:
 530-551). Here the gallery lives in device memory, padded to a size bucket so
 the query is one compiled XLA computation: an [Q, 32] x [32, N] score matmul
-(MXU) followed by ``lax.top_k`` — no host round-trips, no recompilation as
+followed by ``lax.top_k`` — no host round-trips, no recompilation as
 the database grows within a bucket.
 
 Cosine distance semantics match cdist: 1 - <q, g>/(|q||g|); embeddings from
@@ -21,6 +21,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def _normalize(x, eps=0.0):
     n = jnp.linalg.norm(x, axis=-1, keepdims=True)
@@ -31,7 +33,8 @@ def _normalize(x, eps=0.0):
 def _topk_query(gallery_nt: jnp.ndarray, valid: jnp.ndarray,
                 queries: jnp.ndarray, k: int):
     q = _normalize(queries.astype(jnp.float32))
-    scores = jnp.dot(q, gallery_nt, preferred_element_type=jnp.float32)
+    scores = jnp.dot(q, gallery_nt, precision=HIGHEST,
+                     preferred_element_type=jnp.float32)
     # invalid (padding) rows get -inf score == +inf distance; NaN queries
     # (e.g. an untrained zero projection) must not leak padding indices
     scores = jnp.where(valid[None, :] & ~jnp.isnan(scores), scores, -jnp.inf)
@@ -40,17 +43,10 @@ def _topk_query(gallery_nt: jnp.ndarray, valid: jnp.ndarray,
 
 
 class DeviceGallery:
-    """Padded device gallery over [N, d] codes with integer labels.
-
-    Two backends: the XLA matmul+lax.top_k path, and (for large galleries on
-    TPU) the Pallas streaming kernel (ops/topk_gallery.py) that never
-    materializes the [Q, N] score matrix in HBM.
-    """
-
-    PALLAS_MIN_ROWS = 200_000
+    """Padded device gallery over [N, d] codes with integer labels."""
 
     def __init__(self, codes: np.ndarray, ids: Optional[np.ndarray] = None,
-                 bucket: int = 2048, use_pallas: Optional[bool] = None):
+                 bucket: int = 2048):
         n, d = codes.shape
         n_pad = max(bucket, int(np.ceil(n / bucket) * bucket))
         if isinstance(codes, jnp.ndarray):
@@ -68,30 +64,12 @@ class DeviceGallery:
         self.valid = jnp.arange(n_pad) < n
         self.ids = (np.asarray(ids, np.int64) if ids is not None
                     else np.arange(n, dtype=np.int64))
-        if use_pallas is None:
-            use_pallas = (jax.default_backend() == "tpu"
-                          and n >= self.PALLAS_MIN_ROWS)
-        self.use_pallas = use_pallas
 
     def topk(self, queries: np.ndarray, k: int
              ) -> Tuple[np.ndarray, np.ndarray]:
         """-> (distances [Q, k], gallery indices [Q, k])."""
         k = min(k, self.n)
         q = jnp.atleast_2d(jnp.asarray(queries))
-        if self.use_pallas:
-            from audio_sheet_retrieval_tpu.ops.topk_gallery import (
-                topk_gallery,
-            )
-
-            qn = _normalize(q.astype(jnp.float32))
-            # padding rows are zero -> score 0; they only surface when the
-            # gallery has fewer than k positive-scoring rows — mask the score
-            # AND clamp the index (ids[] lookups must stay in range)
-            s, i = topk_gallery(qn, self.gallery_n[: len(self.valid)], k)
-            valid = i < self.n
-            s = jnp.where(valid, s, -jnp.inf)
-            i = jnp.where(valid, i, 0)
-            return np.asarray(1.0 - s), np.asarray(i)
         d, i = _topk_query(self.gallery_nt, self.valid, q, k)
         return np.asarray(d), np.asarray(i)
 
@@ -145,6 +123,7 @@ def make_fused_piece_query(params, cfg, processor, gallery: "DeviceGallery",
         codes = cca_model.embed_view2(
             p, prepare_view2_device(wins[:, None, :, :]), cfg)
         scores = jnp.dot(codes.astype(jnp.float32), gal_nt,
+                         precision=HIGHEST,
                          preferred_element_type=jnp.float32)
         scores = jnp.where(valid[None, :] & ~jnp.isnan(scores), scores,
                            -jnp.inf)
@@ -213,6 +192,7 @@ def make_fused_piece_query_spec(params, cfg, gallery: "DeviceGallery",
         codes = embed_spec_excerpts(p, cfg, payload, scale, starts,
                                     quantized)
         scores = jnp.dot(codes.astype(jnp.float32), gal_nt,
+                         precision=HIGHEST,
                          preferred_element_type=jnp.float32)
         scores = jnp.where(valid[None, :] & ~jnp.isnan(scores), scores,
                            -jnp.inf)
@@ -294,6 +274,7 @@ def make_fused_sheet_query(params, cfg, gallery: "DeviceGallery",
         codes = cca_model.embed_view1(
             p, prepare_view1_device(wins[:, None, :, :], cfg), cfg)
         scores = jnp.dot(codes.astype(jnp.float32), gal_nt,
+                         precision=HIGHEST,
                          preferred_element_type=jnp.float32)
         scores = jnp.where(valid[None, :] & ~jnp.isnan(scores), scores,
                            -jnp.inf)

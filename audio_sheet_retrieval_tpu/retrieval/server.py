@@ -12,7 +12,7 @@ Parity with reference:audio_sheet_server.py (AudioSheetServer):
   * ``run``: streaming frame loop with a sliding 42-frame window and an
     energy-based music gate (:83-211, GUI optional).
 
-TPU-first: galleries are device-resident (retrieval/gallery.py) so a full
+Galleries are device-resident (retrieval/gallery.py) so a full
 100-excerpt query is ONE matmul+top-k; the 100 windows are sliced with a
 batched gather instead of a python loop.
 """
@@ -234,8 +234,8 @@ class AudioSheetServer:
             if key not in embedders:
                 # two-level lossless RLE upload (~0.11 B/px); fullconv:
                 # strip-level first conv block (75%-overlap elimination;
-                # cosine >= 0.999 vs per-window — see
-                # ops.windows._strip_embed_core_fullconv)
+                # NOT equivalent to the per-window embedding for trained
+                # weights — see ops.windows._strip_embed_core_fullconv)
                 embedders[key] = win.make_strip_embedder_rle_bitmap2(
                     wrapper.params, wrapper.cfg, (sh, wb), center_crop=h,
                     fullconv=fullconv)
@@ -547,7 +547,7 @@ class AudioSheetServer:
         strip = np.asarray(sheet, np.uint8)
         bm2, vals2, values, (sh, wb) = rle_bitmap2_encode_padded(strip)
         # blocked select-accumulate decode (bit-identical; avoids the
-        # per-pixel gather XLA serializes on TPU). The bucketed plan is
+        # per-pixel random gather). The bucketed plan is
         # part of the program-cache key — few buckets, bounded cache.
         block_k = rle2_block_plan(bm2, vals2, values, sh * wb)
 

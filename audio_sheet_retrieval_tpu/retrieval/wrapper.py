@@ -70,7 +70,7 @@ class RetrievalWrapper:
 
         # NOTE parameters are jit ARGUMENTS, never closures: closed-over
         # weight arrays get inlined as HLO constants, which bloats programs
-        # and degrades dispatch latency on tunneled backends.
+        # and their compile time.
         cfg = model_cfg
         compute_dtype = (jnp.bfloat16 if cfg.compute_dtype == "bfloat16"
                          else jnp.float32)

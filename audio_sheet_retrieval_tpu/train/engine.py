@@ -13,7 +13,7 @@ Control-flow parity with reference:utils/train_dcca_pool.py:
     repeat ``refinement_steps`` times (:492-520),
   * per-epoch results.pkl curve log (:477-489).
 
-TPU-first deviations: the whole update (both encoders + CCA whitening/eigh +
+Deviations: the whole update (both encoders + CCA whitening/eigh +
 ranking loss + Adam) is ONE jitted XLA computation; the view-1 'prepare'
 normalization/half-resize runs on device inside the step (the reference did
 cv2 resizes on the host per batch, models/mutopia_ccal_cont_rsz.py:179-185);

@@ -18,10 +18,6 @@ from typing import Tuple
 
 import numpy as np
 
-_NATIVE_LIB = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native", "audioio", "libasraudio.so")
-
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
     from scipy.io import wavfile
@@ -39,13 +35,13 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
 def read_flac(path: str) -> Tuple[np.ndarray, int]:
     from audio_sheet_retrieval_tpu.utils import flac_native
 
-    return flac_native.decode_file(path, _NATIVE_LIB)
+    return flac_native.decode_file(path)
 
 
 def read_mp3(path: str) -> Tuple[np.ndarray, int]:
     from audio_sheet_retrieval_tpu.utils import flac_native
 
-    return flac_native.decode_file(path, _NATIVE_LIB, codec="mp3")
+    return flac_native.decode_file(path, codec="mp3")
 
 
 def read_audio(path: str) -> Tuple[np.ndarray, int]:

@@ -1,14 +1,13 @@
 """ctypes binding for the native audio decoders (native/audioio).
 
-libasraudio.so bundles the from-scratch FLAC decoder and the
-libmpg123-backed MPEG (mp3) decoder behind one malloc'd-int16 ABI.
-Builds the shared library on first use if g++ is available.
+libasraudio bundles the from-scratch FLAC decoder and the libmpg123-backed
+MPEG (mp3) decoder behind one malloc'd-int16 ABI. The shared library is
+built from its sources on first use (utils/native.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -16,21 +15,13 @@ import numpy as np
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _load(lib_path: str) -> ctypes.CDLL:
+def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(lib_path):
-        # first-use build
-        import importlib.util
+    from audio_sheet_retrieval_tpu.utils import native
 
-        build_py = os.path.join(os.path.dirname(lib_path), "build.py")
-        spec = importlib.util.spec_from_file_location("asr_audioio_build",
-                                                      build_py)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        mod.build(verbose=False)
-    lib = ctypes.CDLL(lib_path)
+    lib = ctypes.CDLL(native.build("asraudio"))
     lib.asr_flac_decode.restype = ctypes.c_int
     lib.asr_flac_decode.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t,
@@ -46,14 +37,13 @@ def _load(lib_path: str) -> ctypes.CDLL:
     return lib
 
 
-def decode_bytes(data: bytes, lib_path: str,
-                 codec: str = "flac") -> Tuple[np.ndarray, int]:
+def decode_bytes(data: bytes, codec: str = "flac") -> Tuple[np.ndarray, int]:
     """Compressed bytes -> (int16 signal [n] or [n, ch], sample_rate).
 
     ``codec`` selects the native entry point: "flac" (from-scratch decoder)
     or "mp3" (libmpg123-backed; rc=1 means libmpg123 is not on this system).
     """
-    lib = _load(lib_path)
+    lib = _load()
     entry = {"flac": lib.asr_flac_decode, "mp3": lib.asr_mp3_decode}[codec]
     buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
     out_samples = ctypes.POINTER(ctypes.c_int16)()
@@ -76,7 +66,6 @@ def decode_bytes(data: bytes, lib_path: str,
     return sig, out_rate.value
 
 
-def decode_file(path: str, lib_path: str,
-                codec: str = "flac") -> Tuple[np.ndarray, int]:
+def decode_file(path: str, codec: str = "flac") -> Tuple[np.ndarray, int]:
     with open(path, "rb") as fp:
-        return decode_bytes(fp.read(), lib_path, codec=codec)
+        return decode_bytes(fp.read(), codec=codec)

@@ -1,64 +1,44 @@
 """Analytic FLOP / roofline accounting for the twin-encoder models.
 
-Turns the bench's task-unit figures (emb/s, updates/s) into auditable
-hardware terms: model FLOPs per embedding / per training update from the
-known conv geometry (models/encoder.py — 8x SAME 3x3 + 1x1 head, maxpool2
-after every second block), achieved TFLOP/s, and % of the chip's effective
-peak for the dtype/precision arm actually run.
+Turns the bench's task-unit figures (emb/s, updates/s) into hardware
+terms: model FLOPs per embedding / per training update from the known conv
+geometry (models/encoder.py — 8x SAME 3x3 + 1x1 head, maxpool2 after every
+second block), achieved FLOP/s, and the share of the card's published peak
+for the dtype/precision arm actually run.
 
 Conventions (stated so the numbers are checkable):
   * FLOPs count multiply-adds as 2 (the standard MFU convention); conv
     FLOPs = 2 * H_out * W_out * K^2 * C_in * C_out. BN/ELU/pool
-    elementwise work and the window gathers are EXCLUDED from model FLOPs
-    (they are not MXU work); they show up as the gap between achieved and
-    the packing bound instead.
+    elementwise work and the window gathers are EXCLUDED from model FLOPs.
   * A training update is counted as 3x forward (forward + input-grad conv
     + weight-grad conv, each the same MAC count) for both views — the
     standard conv-backward accounting. Optimizer/BN/CCA-whitening FLOPs
-    are O(params) / O(32^2) and ignored (the CCA eigh/Newton-Schulz is
-    ~100 kFLOP against ~100 MFLOP of conv work per sample).
-  * Effective peak on TPU depends on how f32 convs are lowered: DEFAULT
-    multiplies in bf16 (1 MXU pass), HIGH runs the bf16x3 emulation
-    (3 passes), HIGHEST bf16x6 (6 passes). So peak_f32_highest =
-    peak_bf16 / 6 etc. This matches the observed ~2x HIGHEST->HIGH and
-    ~3x HIGH->bf16 ceiling ratios (scripts/precision_probe.py).
-
-Reference has no analog (SURVEY.md §6: the repo publishes no numbers);
-this module exists to make OUR ceiling claims auditable (VERDICT r4).
+    are O(params) / O(32^2) and ignored.
+  * The peak for an arm: bfloat16 -> the bf16 tensor-core rate; float32
+    "highest" -> the plain fp32 rate (no tensor cores); float32 "high" or
+    "default" -> the TF32 tensor-core rate, which XLA's GPU backend may
+    use for those arms.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 from audio_sheet_retrieval_tpu.models.encoder import (
     N_CONV_BLOCKS,
     block_channels,
 )
 
-# Public per-chip peaks (Google Cloud TPU docs). Keyed by substrings of
-# jax device_kind. v5e = "TPU v5 lite". HBM bandwidth in bytes/s.
+# Published peaks per card, keyed by jax ``device_kind``. Dense rates
+# without sparsity, at the card's full power limit. Source: NVIDIA H100
+# Tensor Core GPU data sheet, SXM part.
 CHIP_PEAKS: Dict[str, Dict[str, float]] = {
-    "v5 lite": {"bf16_flops": 197e12, "int8_ops": 394e12,
-                "hbm_bytes_per_s": 819e9, "hbm_bytes": 16e9,
-                "name": "TPU v5e"},
-    "v5e": {"bf16_flops": 197e12, "int8_ops": 394e12,
-            "hbm_bytes_per_s": 819e9, "hbm_bytes": 16e9,
-            "name": "TPU v5e"},
-    "v5p": {"bf16_flops": 459e12, "int8_ops": 918e12,
-            "hbm_bytes_per_s": 2765e9, "hbm_bytes": 95e9,
-            "name": "TPU v5p"},
-    "v4": {"bf16_flops": 275e12, "int8_ops": 275e12,
-           "hbm_bytes_per_s": 1228e9, "hbm_bytes": 32e9,
-           "name": "TPU v4"},
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_flops": 989e12, "tf32_flops": 495e12, "fp32_flops": 67e12,
+        "hbm_bytes_per_s": 3.35e12, "hbm_bytes": 80e9,
+        "name": "NVIDIA H100 SXM"},
 }
-
-# MXU passes per f32 multiply for each lax.Precision arm (bf16xN split
-# emulation); bfloat16 compute is always 1 pass.
-F32_PASSES = {"highest": 6, "high": 3, "default": 1}
-
-MXU_DIM = 128  # systolic array lane/column count (v4/v5 generations)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,18 +50,6 @@ class ConvBlock:
     c_in: int
     c_out: int
     flops: int          # 2 * h * w * k^2 * c_in * c_out (per sample)
-
-    @property
-    def mxu_packing(self) -> float:
-        """Upper bound on MXU utilization for this conv treated as the
-        im2col matmul [M, K^2*C_in] x [K^2*C_in, C_out]: both contraction
-        and output-channel dims pad to the 128-lane array. An ESTIMATE of
-        the layout bound (XLA may tile convs differently), not a measured
-        quantity — useful because the model's narrow channels (12-96)
-        structurally underfill the 128-wide MXU."""
-        kdim = self.k * self.k * self.c_in
-        pad = lambda n: -(-n // MXU_DIM) * MXU_DIM  # noqa: E731
-        return (kdim / pad(kdim)) * (self.c_out / pad(self.c_out))
 
 
 def conv_stack(cfg, view: int) -> List[ConvBlock]:
@@ -116,53 +84,46 @@ def train_update_flops(cfg) -> int:
     return 3 * per_sample * cfg.batch_size
 
 
-def mxu_packing_bound(cfg, view: int) -> float:
-    """FLOP-weighted MXU packing upper bound across the view's conv
-    stack — the fraction of peak this geometry could reach even with
-    zero overhead, given 128-lane padding of narrow channel dims."""
-    blocks = conv_stack(cfg, view)
-    total = sum(b.flops for b in blocks)
-    return sum(b.flops * b.mxu_packing for b in blocks) / total
-
-
-def chip_peaks(device_kind: str) -> Optional[Dict[str, float]]:
-    dk = device_kind.lower()
-    for key, peaks in CHIP_PEAKS.items():
-        if key in dk:
-            return peaks
-    return None
+def chip_peaks(device_kind: str) -> Dict[str, float]:
+    """Published peaks of the card; an unknown card is an error."""
+    try:
+        return CHIP_PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device_kind {device_kind!r} "
+            f"(known: {sorted(CHIP_PEAKS)})") from None
 
 
 def effective_peak_flops(device_kind: str, compute_dtype: str,
-                         conv_precision: str) -> Optional[float]:
-    """Per-chip matmul peak (FLOP/s) for the given dtype/precision arm,
-    accounting for the bf16xN f32 emulation passes."""
+                         conv_precision: str) -> float:
+    """Matmul/conv peak (FLOP/s) of the card for one dtype/precision arm."""
     peaks = chip_peaks(device_kind)
-    if peaks is None:
-        return None
-    base = peaks["bf16_flops"]
     if compute_dtype == "bfloat16":
-        return base
-    return base / F32_PASSES.get(conv_precision, 6)
+        return peaks["bf16_flops"]
+    if conv_precision == "highest":
+        return peaks["fp32_flops"]
+    return peaks["tf32_flops"]
 
 
 def mfu(achieved_flops_per_s: float, device_kind: str, compute_dtype: str,
-        conv_precision: str) -> Optional[float]:
-    """Model FLOPs utilization in [0,1] vs the arm's effective peak."""
-    peak = effective_peak_flops(device_kind, compute_dtype, conv_precision)
-    if peak is None:
-        return None
-    return achieved_flops_per_s / peak
+        conv_precision: str) -> float:
+    """Model FLOPs utilization in [0,1] vs the arm's peak."""
+    return achieved_flops_per_s / effective_peak_flops(
+        device_kind, compute_dtype, conv_precision)
+
+
+def bytes_bound_s(nbytes: float, device_kind: str) -> float:
+    """Least time to move ``nbytes`` through device memory at the
+    published bandwidth."""
+    return nbytes / chip_peaks(device_kind)["hbm_bytes_per_s"]
 
 
 def summarize(cfg, device_kind: str) -> Dict[str, float]:
-    """One-stop numbers for bench/RESULTS: per-embed and per-update model
-    FLOPs plus the geometry's packing bounds."""
+    """One-stop numbers for the bench: per-embed and per-update model
+    FLOPs plus the card's name."""
     return {
         "flops_per_sheet_embed": embed_flops(cfg, 1),
         "flops_per_spec_embed": embed_flops(cfg, 2),
         "flops_per_update": train_update_flops(cfg),
-        "mxu_packing_bound_sheet": mxu_packing_bound(cfg, 1),
-        "mxu_packing_bound_spec": mxu_packing_bound(cfg, 2),
-        "chip": (chip_peaks(device_kind) or {}).get("name"),
+        "chip": chip_peaks(device_kind)["name"],
     }

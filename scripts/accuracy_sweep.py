@@ -54,11 +54,6 @@ LADDER = [
     ("f32-highest", "float32", "highest", (16,), {}),
     ("f32-high", "float32", "high", (16, 8), {}),
     ("bf16", "bfloat16", "default", (16, 8), {}),
-    # round-5 serving-ceiling arm: the DB build runs the strip-level
-    # block-1 fullconv with the Pallas DMA feature gather (queries are
-    # audio-side and unchanged) — gated against the per-window bf16
-    # build below
-    ("bf16-fcp", "bfloat16", "default", (16,), {"fullconv": "pallas"}),
 ]
 # (excerpts_per_query, queries_per_piece)
 DIFFICULTY = [(100, 1), (25, 2), (5, 3)]
@@ -71,8 +66,6 @@ COMPARISONS = [
     ("bf16+u16", "f32-highest+u16", "bfloat16 vs f32 strict parity"),
     ("f32-high+u8", "f32-high+u16", "spec u8 vs u16 wire (f32-high)"),
     ("bf16+u8", "bf16+u16", "spec u8 vs u16 wire (bf16)"),
-    ("bf16-fcp+u16", "bf16+u16",
-     "fullconv+Pallas-DMA gallery build vs per-window (bf16)"),
 ]
 
 

@@ -13,7 +13,7 @@ export — exactly the flow README.md:96-113 prescribes:
 
 Everything runs in-process through the real CLI mains (run_train.main,
 refine_cca.main, run_eval.main, reports.main), so the four regimes share
-one jit cache — on TPU the 2nd-4th trainings skip compilation entirely.
+one jit cache — the 2nd-4th trainings skip compilation entirely.
 
 Synthetic-data caveat: the AUGMENT audio block (synths/tempo_range)
 selects performances by LABEL at load/export time; synthetic performances
@@ -45,8 +45,7 @@ REGIMES = ["mutopia_no_aug", "mutopia_sheet_aug", "mutopia_audio_aug",
 def export_synthetic_npz(out_dir, seed, n_train, n_valid, n_test,
                          n_performances, n_onsets):
     """Synthetic corpus -> one <piece>.npz per piece + all_split.yaml."""
-    import yaml
-
+    from audio_sheet_retrieval_tpu.config import write_yaml
     from audio_sheet_retrieval_tpu.data import synthetic
 
     os.makedirs(out_dir, exist_ok=True)
@@ -67,8 +66,7 @@ def export_synthetic_npz(out_dir, seed, n_train, n_valid, n_test,
                                 **payload)
             split[part].append(name)
     split_file = os.path.join(out_dir, "all_split.yaml")
-    with open(split_file, "w") as fp:
-        yaml.safe_dump(split, fp)
+    write_yaml(split_file, split)
     return split_file
 
 

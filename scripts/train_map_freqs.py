@@ -1,16 +1,14 @@
 #!/usr/bin/env python
 """Train the STATIC rANS frequency table for the OMR map download.
 
-Round 4 analyzed rANS for the probability-map DOWNLOAD as a wash: a
-device-built table needs a histogram download (table construction) plus a
-word-count download (sized payload) — 3 RPC round trips that eat the wire
-saving at the measured ~26 ms RPC floor (RESULTS.md round-4 OMR row). A
-STATIC table trained offline on map content removes both extra trips
-(VERDICT r4 next #6). This script builds that table:
+A device-built rANS table for the probability-map DOWNLOAD needs a
+histogram download (table construction) plus a word-count download (sized
+payload) — 3 host round trips. A STATIC table trained offline on map
+content removes both extra trips. This script builds that table:
 
   * runs the three detector U-Nets (system/bar/note) over the vendored
-    tutorial page and its contrast/scale variants (the same gate pages
-    scripts/omr_probe.py uses — synthetic pages are a measured dead end),
+    tutorial page and its contrast/scale variants (synthetic staff-line
+    pages detect no systems: the detectors were trained on real engraving),
   * histograms the u8 map codes AND the u16 hi-byte plane (both download
     encodings), add-1 smoothed so every byte stays encodable,
   * quantizes to the coder's 12-bit precision and writes
@@ -39,6 +37,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 
+def page_variants(img: np.ndarray):
+    """The real page + rescale/contrast/brightness variants."""
+    import cv2
+
+    h, w = img.shape
+    out = [img]
+    for scale in (0.9, 1.1):
+        out.append(cv2.resize(img, (int(w * scale), int(h * scale))))
+    out.append(np.clip(img.astype(np.float32) * 0.85 + 20, 0,
+                       255).astype(img.dtype))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--variants", type=int, default=3,
@@ -52,8 +63,6 @@ def main(argv=None):
     from audio_sheet_retrieval_tpu import assets
     from audio_sheet_retrieval_tpu.omr import inference
     from audio_sheet_retrieval_tpu.ops import rans
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from omr_probe import page_variants
 
     img = cv2.imread(assets.tutorial_sheet_path(), 0)
     img = cv2.resize(img, (835, int(835 / img.shape[1] * img.shape[0])))

@@ -279,3 +279,78 @@ def test_sheet_audio_server_cli_full_eval_fused(tmp_path):
     ranks_host = sheet_audio_server.main(common)
     ranks_fused = sheet_audio_server.main(common + ["--fused"])
     assert len(ranks_host) == 3 and ranks_fused == ranks_host
+
+
+@pytest.mark.parametrize("name", ["mutopia_audio_aug", "mutopia_full_aug",
+                                  "mutopia_no_aug", "mutopia_sheet_aug"])
+def test_yaml_reader_matches_pyyaml_on_exp_configs(name):
+    path = os.path.join(cfg_mod.EXP_CONFIG_DIR, name + ".yaml")
+    with open(path) as fp:
+        want = yaml.safe_load(fp)
+    assert cfg_mod.read_yaml(path) == want
+    # and what it writes reads back the same through both readers
+    text = cfg_mod.dump_yaml(want)
+    assert yaml.safe_load(text) == want
+    assert cfg_mod.parse_yaml(text) == want
+
+
+def test_result_dump_roundtrip(tmp_path):
+    """Result dumps (eval dicts with quoted numeric keys, rank lists,
+    split files with awkward names) round-trip through write/read_yaml
+    and stay readable by PyYAML."""
+    objs = [{"map": 0.51, "med_rank": 3.0,
+             "recall_at_k": {"1": 31.2, "25": 88.8}},
+            [1, 1, 2, 7, 12],
+            {"train": ["P1", "yes", "1.0", "a: b", "it's", "#x"],
+             "valid": [], "test": ["P3"]},
+            {"tiny": 1e-05, "huge": 1.5e20, "none": None, "flag": True,
+             "neg": -3, "empty": {}}]
+    for i, obj in enumerate(objs):
+        p = str(tmp_path / f"r{i}.yaml")
+        cfg_mod.write_yaml(p, obj)
+        assert cfg_mod.read_yaml(p) == obj
+        with open(p) as fp:
+            assert yaml.safe_load(fp) == obj
+
+
+def test_clis_import_without_pyyaml():
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['yaml'] = None\n"
+            "import audio_sheet_retrieval_tpu.cli.run_eval, "
+            "audio_sheet_retrieval_tpu.cli.audio_sheet_server, "
+            "audio_sheet_retrieval_tpu.cli.sheet_audio_server, "
+            "audio_sheet_retrieval_tpu.cli.umc_a2s_server, "
+            "audio_sheet_retrieval_tpu.cli.umc_s2a_server, "
+            "audio_sheet_retrieval_tpu.cli.reports, "
+            "audio_sheet_retrieval_tpu.cli.run_train\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], cwd=repo, check=True,
+                   timeout=300)
+
+
+def test_compile_cache_dir_honours_jax_env():
+    from audio_sheet_retrieval_tpu.utils import profiling
+
+    env = {"JAX_COMPILATION_CACHE_DIR": "/some/cache"}
+    assert profiling.compile_cache_dir(env, "gpu") == "/some/cache"
+
+
+def test_compile_cache_dir_defaults_to_checkout():
+    from audio_sheet_retrieval_tpu.utils import profiling
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    got = profiling.compile_cache_dir({}, "gpu")
+    assert got == os.path.join(repo, ".jax_cache", "gpu")
+    assert profiling.compile_cache_dir({"OTHER": "x"}, "gpu") == got
+
+
+def test_native_library_path_tracks_sources():
+    from audio_sheet_retrieval_tpu.utils import native
+
+    a = native.lib_path("asrrans")
+    assert a == native.lib_path("asrrans")
+    assert os.path.dirname(a) == native.BUILD_DIR
+    assert os.path.basename(a).startswith("libasrrans-")
+    assert a != native.lib_path("asraudio")

@@ -2,31 +2,26 @@
 
 import os
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
 
 from tests.flac_test_encoder import encode_flac
 
-LIB = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "native", "audioio", "libasraudio.so")
-
 
 @pytest.fixture(scope="module", autouse=True)
 def build_lib():
     if shutil.which("g++") is None:
         pytest.skip("no g++ in environment")
-    subprocess.run(
-        ["python", os.path.join(os.path.dirname(LIB), "build.py")],
-        check=True)
-    assert os.path.exists(LIB)
+    from audio_sheet_retrieval_tpu.utils import native
+
+    assert os.path.exists(native.build("asraudio"))
 
 
 def _decode(data: bytes):
     from audio_sheet_retrieval_tpu.utils import flac_native
 
-    return flac_native.decode_bytes(data, LIB)
+    return flac_native.decode_bytes(data)
 
 
 def _noise(n, seed=0, scale=20000):
@@ -90,8 +85,6 @@ def test_read_audio_dispatch(tmp_path):
     sig = _noise(5000, 4)
     p = tmp_path / "x.flac"
     p.write_bytes(encode_flac(sig, 22050, mode="verbatim"))
-    # point the module at the built library
-    audio_io._NATIVE_LIB = LIB
     out, sr = audio_io.read_audio(str(p))
     assert sr == 22050
     np.testing.assert_array_equal(out, sig)

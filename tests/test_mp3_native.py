@@ -85,8 +85,7 @@ def test_mono_roundtrip_waveform():
     t = np.arange(sr * 2) / sr
     sig = (10000 * np.sin(2 * np.pi * (300 + 150 * t) * t)).astype(np.int16)
     data = lame_encode(sig, sr)
-    dec, got_sr = flac_native.decode_bytes(data, audio_io._NATIVE_LIB,
-                                           codec="mp3")
+    dec, got_sr = flac_native.decode_bytes(data, codec="mp3")
     assert got_sr == sr
     assert dec.ndim == 1
     assert abs(len(dec) - len(sig)) < 5000  # encoder/decoder padding
@@ -117,5 +116,4 @@ def test_stereo_channels_not_swapped(tmp_path):
 
 def test_garbage_bytes_rejected():
     with pytest.raises(ValueError):
-        flac_native.decode_bytes(b"\x00" * 4096, audio_io._NATIVE_LIB,
-                                 codec="mp3")
+        flac_native.decode_bytes(b"\x00" * 4096, codec="mp3")

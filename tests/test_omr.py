@@ -325,14 +325,13 @@ def test_omr_precision_ladder_detection_equality_gate():
     """The OMR fast-recipe gate (VERDICT r3 #3), all three detectors on
     the real tutorial page vs the f32-highest parity arm:
 
-      * f32-high (the gated fast default, 64 ms/page vs 88): systems,
+      * f32-high (the gated fast default): systems,
         bars AND noteheads must be bit-identical;
-      * bfloat16 (opt-in, 29.8 ms/page on TPU): NOT detection-identical —
-        the measured deviation is bounded here (same system/bar sets up
-        to 2 px corner shift; notehead count within 2%: +2/349 CPU,
-        +4/349 TPU). This is the documented negative result for strict
-        equality: the true-bf16 pipeline trades a few threshold-crossing
-        noteheads for 2.9x page throughput (scripts/omr_probe.py)."""
+      * bfloat16 (opt-in): NOT detection-identical — the measured
+        deviation is bounded here (same system/bar sets up to 2 px corner
+        shift; notehead count within 2%: +2/349 on the CPU). This is the
+        documented negative result for strict equality: the true-bf16
+        pipeline trades a few threshold-crossing noteheads for speed."""
     import cv2
 
     img = cv2.imread(PAGE, 0)

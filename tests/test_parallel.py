@@ -103,14 +103,14 @@ def test_sharded_gallery_negative_scores_no_padding_eviction(mesh8):
 
 
 def test_hybrid_mesh_axes_and_training():
-    """DCN-aware hybrid mesh: 2 'slices' x 4 chips -> ('data' across DCN,
-    'db' inside ICI); the training step + gallery search run under it on
-    the virtual backend (fallback reshape path)."""
+    """2-D ('data', 'db') mesh of 2 x 4 devices: the training step runs
+    with the batch over both axes, and the gallery search over one 'db'
+    row of the mesh."""
     from audio_sheet_retrieval_tpu.models import cca_model
     from audio_sheet_retrieval_tpu.models.configs import get_model_config
     from audio_sheet_retrieval_tpu.train import engine, state as tstate
 
-    mesh = pm.make_hybrid_mesh((1, 4), (2, 1), (pm.DATA_AXIS, pm.DB_AXIS))
+    mesh = pm.make_mesh((2, 4), (pm.DATA_AXIS, pm.DB_AXIS))
     assert dict(mesh.shape) == {"data": 2, "db": 4}
 
     cfg = get_model_config("mutopia_ccal_cont_rsz", num_filters=4,

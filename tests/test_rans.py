@@ -1,7 +1,7 @@
 """Interleaved-stream rANS wire coding: lossless roundtrips, batch decode,
 and bit-identical embeddings through the corpus sheet pipeline.
 
-The coder (ops/rans.py) is a TPU-native transport stage with no reference
+The coder (ops/rans.py) is a device-decoded transport stage with no reference
 analog (CPJKU/audio_sheet_retrieval uploads raw uint8 pixels); these tests
 pin the host encoder against BOTH decoders (numpy reference + XLA scan)
 and the full corpus path against the uncoded rle2 embedder.

@@ -56,35 +56,37 @@ def test_update_flops_is_3x_forward_times_batch(rsz_cfg):
         3 * fwd * rsz_cfg.batch_size
 
 
-def test_effective_peaks_v5e(rsz_cfg):
-    kind = "TPU v5 lite0"
-    assert roofline.effective_peak_flops(kind, "bfloat16", "highest") \
-        == pytest.approx(197e12)
-    assert roofline.effective_peak_flops(kind, "float32", "high") \
-        == pytest.approx(197e12 / 3)
-    assert roofline.effective_peak_flops(kind, "float32", "highest") \
-        == pytest.approx(197e12 / 6)
-    assert roofline.effective_peak_flops("FancyChip9000", "float32",
-                                         "high") is None
-    assert roofline.mfu(10e12, kind, "bfloat16", "highest") \
-        == pytest.approx(10 / 197)
+H100 = "NVIDIA H100 80GB HBM3"
 
 
-def test_packing_bound_reflects_narrow_channels(rsz_cfg):
-    """The model's 24-96 channel widths underfill the 128-lane MXU: the
-    FLOP-weighted packing bound sits well below 1 but above the widest
-    block's floor."""
-    for view in (1, 2):
-        bound = roofline.mxu_packing_bound(rsz_cfg, view)
-        assert 0.3 < bound < 0.8
-    # the widest rsz block (864x96 im2col) packs (864/896)*(96/128)
-    blocks = roofline.conv_stack(rsz_cfg, 1)
-    widest = max(blocks[:-1], key=lambda b: b.k * b.k * b.c_in)
-    assert widest.mxu_packing == pytest.approx((864 / 896) * (96 / 128))
+@pytest.mark.parametrize("dtype,precision,peak", [
+    ("bfloat16", "default", 989e12),
+    ("bfloat16", "highest", 989e12),
+    ("float32", "highest", 67e12),
+    ("float32", "high", 495e12),
+    ("float32", "default", 495e12),
+])
+def test_effective_peaks_h100(dtype, precision, peak):
+    assert roofline.effective_peak_flops(H100, dtype, precision) \
+        == pytest.approx(peak)
+    assert roofline.mfu(peak / 10, H100, dtype, precision) \
+        == pytest.approx(0.1)
+
+
+def test_unknown_device_raises():
+    with pytest.raises(ValueError, match="no published peaks"):
+        roofline.chip_peaks("FancyChip9000")
+    with pytest.raises(ValueError):
+        roofline.effective_peak_flops("cpu", "float32", "highest")
+
+
+def test_bytes_bound_uses_published_bandwidth():
+    assert roofline.bytes_bound_s(3.35e12, H100) == pytest.approx(1.0)
+    assert roofline.chip_peaks(H100)["hbm_bytes"] == 80e9
 
 
 def test_summarize_keys(rsz_cfg):
-    s = roofline.summarize(rsz_cfg, "TPU v5 lite0")
-    assert s["chip"] == "TPU v5e"
+    s = roofline.summarize(rsz_cfg, H100)
+    assert s["chip"] == "NVIDIA H100 SXM"
     assert s["flops_per_sheet_embed"] > s["flops_per_spec_embed"]
     assert s["flops_per_update"] > 1e11
